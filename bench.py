@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
-"""Benchmark: path-tracing throughput on the attached accelerator.
+"""Benchmark: path-tracing throughput on the attached GPU.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...extras}.
+    python bench.py          # needs a GPU; exits non-zero without one
+    python bench.py --cpu    # explicit CPU run (numbers are not GPU numbers)
+
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "device",
+...extras}; "device" holds platform, device_kind, device count and the
+card's name and power limit. Any phase that fails fails the run.
 
 Primary metric: cornell 400x400x64spp depth 5 (scenes/cornell.pbrt ==
 make_cornell_box) wavefront paths/s.  Baseline (MEASURED, BASELINE.md): the
@@ -13,20 +18,49 @@ Secondary metric (VERDICT r2 #10: "extend the bench matrix"): the
 meshfield golden scene (~20k-triangle BVH path, scenes/meshfield.pbrt) at
 200x200x32spp, reported as extras.mesh_paths_per_sec.
 """
+import argparse
 import json
 import os
+import subprocess
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tpu")
 
-
-def main():
+def device_record(cpu):
+    """platform, device_kind, count and (on a GPU) the card's name and power
+    limit; exits 2 when a GPU run finds no GPU."""
     import jax
-    from pbrt_tpu import scenes
-    from pbrt_tpu import samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    devs = jax.devices()
+    if devs[0].platform != "gpu" and not cpu:
+        print("bench.py: no GPU found (pass --cpu for a CPU run)",
+              file=sys.stderr)
+        sys.exit(2)
+    rec = dict(platform=devs[0].platform, device_kind=devs[0].device_kind,
+               count=len(devs))
+    if devs[0].platform == "gpu":
+        rec["cards"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU backend instead of a GPU")
+    args = ap.parse_args(argv)
+    if args.cpu:
+        import jax
+        jax.config.update("jax_platforms", "cpu")
+    device = device_record(args.cpu)
+    from pbrt_jax.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
+    import jax
+    from pbrt_jax import scenes
+    from pbrt_jax import samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
 
     t_start = time.time()
 
@@ -55,102 +89,82 @@ def main():
 
     # --- secondary: meshfield (~20k-tri BVH scene) ------------------------
     extras = {}
-    try:
-        from pbrt_tpu.scene import parser as pparser
-        desc = pparser.parse_file("scenes/meshfield.pbrt")
-        msampler = smp.make_sampler("zsobol", spp=32,
-                                    full_resolution=(200, 200))
-        mopts = PathOptions(max_depth=4)
-        rdr.render(desc.scene, desc.camera, sampler=msampler, opts=mopts,
-                   max_waves=32)
-        _img, mstats = rdr.render(desc.scene, desc.camera, spp=32,
-                                  sampler=msampler, opts=mopts)
-        extras["mesh_paths_per_sec"] = mstats["paths_per_sec"]
-        extras["mesh_scene"] = "meshfield 200x200x32spp ~20k tris"
-    except Exception as e:  # never let the secondary break the bench line
-        extras["mesh_error"] = str(e)[:200]
+    from pbrt_jax.scene import parser as pparser
+    desc = pparser.parse_file("scenes/meshfield.pbrt")
+    msampler = smp.make_sampler("zsobol", spp=32,
+                                full_resolution=(200, 200))
+    mopts = PathOptions(max_depth=4)
+    rdr.render(desc.scene, desc.camera, sampler=msampler, opts=mopts,
+               max_waves=32)
+    _img, mstats = rdr.render(desc.scene, desc.camera, spp=32,
+                              sampler=msampler, opts=mopts)
+    extras["mesh_paths_per_sec"] = mstats["paths_per_sec"]
+    extras["mesh_scene"] = "meshfield 200x200x32spp ~20k tris"
 
     # --- 1080p time-to-64spp (BASELINE.json config 5 scale point):
     # transparent-machines-class frame — layered (coated) + subsurface +
     # smooth/rough dielectric + conductor meshes, full wavefront pipeline
-    try:
-        w1, h1 = 1920, 1080
-        scene1, cam1 = scenes.make_machines_frame(width=w1, height=h1)
-        s1 = smp.make_sampler("zsobol", spp=64, full_resolution=(w1, h1))
-        o1 = PathOptions(max_depth=5)
-        rdr.render(scene1, cam1, sampler=s1, opts=o1, max_waves=8)
-        _img, st1 = rdr.render(scene1, cam1, spp=64, sampler=s1, opts=o1)
-        extras["time_to_64spp_1080p_s"] = round(st1["seconds"], 3)
-        extras["paths_per_sec_1080p"] = st1["paths_per_sec"]
-        extras["scene_1080p"] = "machines-frame (coated+subsurface+dielectric+conductor)"
-    except Exception as e:
-        extras["bench1080_error"] = str(e)[:200]
+    w1, h1 = 1920, 1080
+    scene1, cam1 = scenes.make_machines_frame(width=w1, height=h1)
+    s1 = smp.make_sampler("zsobol", spp=64, full_resolution=(w1, h1))
+    o1 = PathOptions(max_depth=5)
+    rdr.render(scene1, cam1, sampler=s1, opts=o1, max_waves=8)
+    _img, st1 = rdr.render(scene1, cam1, spp=64, sampler=s1, opts=o1)
+    extras["time_to_64spp_1080p_s"] = round(st1["seconds"], 3)
+    extras["paths_per_sec_1080p"] = st1["paths_per_sec"]
+    extras["scene_1080p"] = "machines-frame (coated+subsurface+dielectric+conductor)"
 
-    # --- compaction A/B on meshfield (VERDICT r4 #7: commit the numbers
-    # behind the auto heuristic — ON is the measured win for BVH8 scenes,
-    # forced-ON on brute-force scenes is a 5.4x cliff pinned by
-    # tests/test_compaction_auto.py) ------------------------------------
+    # --- compaction A/B on meshfield ------------------------------------
     if budget_left(extras, "compaction_ab"):
-        try:
-            for label, comp in (("on", True), ("off", False)):
-                oc = PathOptions(max_depth=4, compaction=comp)
-                rdr.render(desc.scene, desc.camera, sampler=msampler,
-                           opts=oc, max_waves=32)
-                _i, cst = rdr.render(desc.scene, desc.camera, spp=32,
-                                     sampler=msampler, opts=oc)
-                extras[f"compaction_{label}_paths_per_sec"] = round(
-                    cst["paths_per_sec"])
-        except Exception as e:
-            extras["compaction_ab_error"] = str(e)[:200]
+        for label, comp in (("on", True), ("off", False)):
+            oc = PathOptions(max_depth=4, compaction=comp)
+            rdr.render(desc.scene, desc.camera, sampler=msampler,
+                       opts=oc, max_waves=32)
+            _i, cst = rdr.render(desc.scene, desc.camera, spp=32,
+                                 sampler=msampler, opts=oc)
+            extras[f"compaction_{label}_paths_per_sec"] = round(
+                cst["paths_per_sec"])
 
-    # --- per-stage ms table (VERDICT r4 #10: the data lived only in
-    # ROUND4.md; emit it with every bench run) ---------------------------
+    # --- per-stage ms table (separately jitted stages: upper bounds) -----
     if budget_left(extras, "stage_ms"):
-        try:
-            sys.path.insert(0, os.path.join(os.path.dirname(
-                os.path.abspath(__file__)), "tools"))
-            import profile_stages as pstages
-            rows, info = pstages.collect("cornell", n=160 * 1024, depth=5,
-                                         reps=3)
-            extras["stage_ms_cornell_160k"] = {k: round(v, 2)
-                                               for k, v in rows}
-        except Exception as e:
-            extras["stage_ms_error"] = str(e)[:200]
+        sys.path.insert(0, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools"))
+        import profile_stages as pstages
+        rows, info = pstages.collect("cornell", n=160 * 1024, depth=5,
+                                     reps=3)
+        extras["stage_ms_cornell_160k"] = {k: round(v, 2) for k, v in rows}
 
     # --- Mrays/s (closest + shadow) on the meshfield BVH ------------------
-    try:
-        import jax, numpy as _np, time as _t
-        import jax.numpy as jnp
-        from pbrt_tpu import scene_core as sc
-        sc_m = desc.scene
-        N = 1 << 20
-        rng = _np.random.default_rng(0)
-        lo = _np.asarray(sc_m.world_lo)
-        hi = _np.asarray(sc_m.world_hi)
-        o = jnp.asarray(rng.uniform(lo - 1, hi + 1, (N, 3)).astype(_np.float32))
-        d = jnp.asarray(rng.normal(size=(N, 3)).astype(_np.float32))
-        d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
-        tm = jnp.full((N,), 1e30, jnp.float32)
+    import numpy as _np
+    import jax.numpy as jnp
+    from pbrt_jax import scene_core as sc
+    sc_m = desc.scene
+    N = 1 << 20
+    rng = _np.random.default_rng(0)
+    lo = _np.asarray(sc_m.world_lo)
+    hi = _np.asarray(sc_m.world_hi)
+    o = jnp.asarray(rng.uniform(lo - 1, hi + 1, (N, 3)).astype(_np.float32))
+    d = jnp.asarray(rng.normal(size=(N, 3)).astype(_np.float32))
+    d = d / jnp.linalg.norm(d, axis=1, keepdims=True)
+    tm = jnp.full((N,), 1e30, jnp.float32)
 
-        def pair(o, d, tm):
-            r = sc.intersect(sc_m, o, d, tm)
-            occ = sc.intersect_p(sc_m, o, d, jnp.full((N,), 30.0))
-            return r["t"], occ
-        f = jax.jit(pair)
-        jax.block_until_ready(f(o, d, tm))
-        t0 = _t.perf_counter()
-        reps = 5
-        for _ in range(reps):
-            out = f(o, d, tm)
-        jax.block_until_ready(out)
-        dt = (_t.perf_counter() - t0) / reps
-        extras["mrays_per_sec"] = round(2 * N / dt / 1e6, 2)
-    except Exception as e:
-        extras["mrays_error"] = str(e)[:200]
+    def pair(o, d, tm):
+        r = sc.intersect(sc_m, o, d, tm)
+        occ = sc.intersect_p(sc_m, o, d, jnp.full((N,), 30.0))
+        return r["t"], occ
+    f = jax.jit(pair)
+    jax.block_until_ready(f(o, d, tm))
+    t0 = time.perf_counter()
+    reps = 5
+    for _ in range(reps):
+        out = f(o, d, tm)
+    jax.block_until_ready(out)
+    dt = (time.perf_counter() - t0) / reps
+    extras["mrays_per_sec"] = round(2 * N / dt / 1e6, 2)
 
     print(json.dumps({"metric": "wavefront_paths_per_sec", "value": value,
                       "unit": "paths/s", "vs_baseline": value / baseline,
-                      **extras}))
+                      "device": device, **extras}))
     return 0
 
 

@@ -4,7 +4,7 @@ re-trace), alpha=1 texels hit normally; shadow rays agree."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import scene_core as sc
+from pbrt_jax import scene_core as sc
 
 
 def _scene():

@@ -3,12 +3,12 @@ Analytic oracle: unoccluded plane -> AO == 1 exactly in expectation;
 a point under an enclosing box -> 0."""
 import numpy as np
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import cameras as cam_mod
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax import cameras as cam_mod
+from pbrt_jax import samplers as smp
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.utils import transform as tfm
 
 
 def _cam():

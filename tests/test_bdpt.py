@@ -3,12 +3,12 @@ bidirectional estimates must agree with forward path tracing."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import scenes, samplers as smp, cameras as cm
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax import scenes, samplers as smp, cameras as cm
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import transform as tfm
 
 
 def test_direct_lighting_matches_path():
@@ -167,8 +167,8 @@ def test_bdpt_grid_media_falls_back_to_volpath():
     ignoring the medium (VERDICT r4 #9). Gate: integrator='bdpt' on a
     grid-fog scene reproduces the analytic transmittance (which the
     surface-only BDPT would miss entirely)."""
-    from pbrt_tpu.integrators import bdpt as bdpt_mod
-    from pbrt_tpu.integrators import render as rdr_mod
+    from pbrt_jax.integrators import bdpt as bdpt_mod
+    from pbrt_jax.integrators import render as rdr_mod
     sigma = 0.4
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((0.0, 0.0, 0.0))

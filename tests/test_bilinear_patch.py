@@ -3,14 +3,14 @@ Reshetov). Unit math + scene integration + shadow occlusion."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import cameras as cam_mod
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.ops.intersect import ray_bilinear_patch
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax import cameras as cam_mod
+from pbrt_jax import samplers as smp
+from pbrt_jax.ops.intersect import ray_bilinear_patch
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import transform as tfm
 
 
 def _patch_pt(p00, p10, p01, p11, u, v):

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu import bxdfs
+from pbrt_jax import bxdfs
 
 
 def _params(tag, n, albedo=0.8, alpha=0.0, eta=1.5, k=None):

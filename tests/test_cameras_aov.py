@@ -3,9 +3,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu import cameras as cm
-from pbrt_tpu import scenes
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import cameras as cm
+from pbrt_jax import scenes
+from pbrt_jax.utils import transform as tfm
 
 
 def test_perspective_ray_directions():
@@ -61,7 +61,7 @@ def test_depth_of_field_blurs_off_focus():
 
 
 def test_aov_pass():
-    from pbrt_tpu.integrators import aov
+    from pbrt_jax.integrators import aov
     scene, cam = scenes.make_cornell_box(width=24, height=24)
     out = aov.render_aovs(scene, cam, spp=2)
     assert out["z"].shape == (24, 24)

@@ -4,8 +4,8 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu.ops import curves as crv
-from pbrt_tpu import scene_core as sc
+from pbrt_jax.ops import curves as crv
+from pbrt_jax import scene_core as sc
 
 
 def test_bezier_eval_endpoints():
@@ -57,7 +57,7 @@ def test_curve_u_parameter_monotone():
 @pytest.mark.slow
 def test_scene_with_curves_renders_and_occludes():
     """Full scene path: curve BVH closest-hit + shadow occlusion."""
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax.utils import spectrum as spc
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((0.8, 0.2, 0.2))
     # arc over the origin
@@ -89,7 +89,7 @@ def test_scene_with_curves_renders_and_occludes():
 
 
 def test_parser_curve_shape():
-    from pbrt_tpu.scene import parser
+    from pbrt_jax.scene import parser
     desc = parser.parse_string('''
 Camera "perspective"
 Film "rgb" "integer xresolution" [8] "integer yresolution" [8]

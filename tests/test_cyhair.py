@@ -4,7 +4,7 @@ import struct
 
 import numpy as np
 
-from pbrt_tpu.cmd import cyhair2pbrt as ch
+from pbrt_jax.cmd import cyhair2pbrt as ch
 
 
 def _write_hair(path, strands, default_thickness=0.1, segments=None):
@@ -87,6 +87,6 @@ def test_output_parses_as_scene(tmp_path):
                 'LightSource "infinite" "rgb L" [1 1 1]\n')
         ch.convert(str(p), f)
 
-    from pbrt_tpu.scene.parser import parse_file
+    from pbrt_jax.scene.parser import parse_file
     desc = parse_file(str(pbrt))
     assert desc.scene.has_curves

@@ -3,8 +3,8 @@ gpu/optix/denoiser.h:23 + imgtool denoise-optix)."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import denoise as dn
-from pbrt_tpu.utils import image as pimg
+from pbrt_jax import denoise as dn
+from pbrt_jax.utils import image as pimg
 
 
 def _synthetic(noise=0.3, seed=0):
@@ -64,7 +64,7 @@ def test_denoise_gbuffer_exr_roundtrip(tmp_path):
     back = pimg.read_exr_channels(p_in)
     np.testing.assert_allclose(back["N.y"], normal[..., 1], atol=1e-3)
     p_out = str(tmp_path / "d.exr")
-    from pbrt_tpu.cmd import imgtool
+    from pbrt_jax.cmd import imgtool
     assert imgtool.main(["denoise", p_in, "--outfile", p_out]) == 0
     out = pimg.read_exr(p_out)
     assert pimg.image_mse(out, clean) < 0.3 * pimg.image_mse(noisy, clean)

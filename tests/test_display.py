@@ -5,7 +5,7 @@ import threading
 
 import numpy as np
 
-from pbrt_tpu.utils.display import DisplayServer
+from pbrt_jax.utils.display import DisplayServer
 
 
 def _mock_tev(received):

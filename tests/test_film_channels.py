@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import film as film_mod
-from pbrt_tpu.utils import image as pimg
+from pbrt_jax import film as film_mod
+from pbrt_jax.utils import image as pimg
 
 
 def test_variance_channels_track_welford():
@@ -32,7 +32,7 @@ def test_multichannel_exr_roundtrip_rgb(tmp_path):
 
 
 def test_spectral_exr_writes(tmp_path):
-    from pbrt_tpu.integrators import aov
+    from pbrt_jax.integrators import aov
     rng = np.random.default_rng(1)
     buckets = rng.uniform(0, 1, (6, 7, 4)).astype(np.float32)
     edges = np.linspace(360, 830, 5)
@@ -43,7 +43,7 @@ def test_spectral_exr_writes(tmp_path):
 
 
 def test_gbuffer_exr_writes(tmp_path):
-    from pbrt_tpu.integrators import aov
+    from pbrt_jax.integrators import aov
     H, W = 5, 6
     aovs = dict(p=np.zeros((H, W, 3)), n=np.zeros((H, W, 3)),
                 ns=np.zeros((H, W, 3)), uv=np.zeros((H, W, 2)),

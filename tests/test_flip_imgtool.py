@@ -4,7 +4,7 @@ import json
 import numpy as np
 import pytest
 
-from pbrt_tpu.utils.flip import flip
+from pbrt_jax.utils.flip import flip
 
 
 def test_flip_identical_is_zero():
@@ -35,11 +35,11 @@ def test_flip_detects_hue_shift_more_than_luminance_preserving():
 
 
 def test_imgtool_diff_flip_and_falsecolor(tmp_path, capsys):
-    from pbrt_tpu.cmd import imgtool
+    from pbrt_jax.cmd import imgtool
     rng = np.random.default_rng(2)
     a = rng.uniform(0, 1, (16, 16, 3)).astype(np.float32)
     b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
-    from pbrt_tpu.utils import image as pimg
+    from pbrt_jax.utils import image as pimg
     pa, pb = str(tmp_path / "a.pfm"), str(tmp_path / "b.pfm")
     pimg.write_pfm(pa, a)
     pimg.write_pfm(pb, b)
@@ -53,8 +53,8 @@ def test_imgtool_diff_flip_and_falsecolor(tmp_path, capsys):
 
 
 def test_imgtool_assemble_sums_partials(tmp_path, capsys):
-    from pbrt_tpu.cmd import imgtool
-    from pbrt_tpu.utils import image as pimg
+    from pbrt_jax.cmd import imgtool
+    from pbrt_jax.utils import image as pimg
     a = np.zeros((8, 8, 3), np.float32)
     b = np.zeros((8, 8, 3), np.float32)
     a[:4] = 1.0

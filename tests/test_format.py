@@ -5,8 +5,8 @@ import io
 import numpy as np
 import pytest
 
-from pbrt_tpu.scene.format import format_string
-from pbrt_tpu.scene.parser import parse_string
+from pbrt_jax.scene.format import format_string
+from pbrt_jax.scene.parser import parse_string
 
 
 def _fmt(text, **kw):
@@ -120,7 +120,7 @@ def test_toply_extracts_large_mesh(tmp_path):
              + " ".join(f"{c}" for p in pts for c in p) + ']\n')
     text, f = _fmt(scene, toply=True, ply_dir=str(tmp_path))
     assert 'Shape "plymesh"' in text and '"string filename"' in text
-    from pbrt_tpu.scene import plyio
+    from pbrt_jax.scene import plyio
     m = plyio.read_ply(str(tmp_path / "mesh_00000.ply"))
     assert len(m["indices"]) == n
     # small meshes stay inline

@@ -3,7 +3,7 @@ sampler convergence measurement on analytic [0,1)^2 test functions."""
 import numpy as np
 import pytest
 
-from pbrt_tpu.integrators import function as fn
+from pbrt_jax.integrators import function as fn
 
 
 @pytest.mark.parametrize("name", sorted(fn.FUNCTIONS))
@@ -40,7 +40,7 @@ def test_cli_scene_file(tmp_path, monkeypatch):
         f'Integrator "function" "string function" "disk" '
         f'"string filename" "{out}"\n'
         'WorldBegin\n')
-    from pbrt_tpu.cmd import main as cli
+    from pbrt_jax.cmd import main as cli
     assert cli.main([str(scene)]) == 0
     rows = [line.split() for line in out.read_text().splitlines()]
     assert rows and float(rows[-1][1]) < 0.2

@@ -4,7 +4,7 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import bxdfs
+from pbrt_jax import bxdfs
 
 
 def _hair_params(n, sigma_a=0.0, beta_m=0.3, beta_n=0.3, h=0.3):
@@ -75,10 +75,10 @@ def test_hair_absorption_darkens():
 def test_hair_render_on_curves():
     """Hair material on curve geometry renders finite, nonzero."""
     import jax
-    from pbrt_tpu import scene_core as sc, cameras as cam_mod
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu.utils import spectrum as spc, transform as tfm
+    from pbrt_jax import scene_core as sc, cameras as cam_mod
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax.utils import spectrum as spc, transform as tfm
     b = sc.SceneBuilder()
     m = b.materials.add_hair(sigma_a=(0.1, 0.2, 0.4), beta_m=0.3, beta_n=0.3)
     rng = np.random.default_rng(3)

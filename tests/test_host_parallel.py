@@ -2,7 +2,7 @@
 parallel Import parsing parser.cpp:771-808)."""
 import numpy as np
 
-from pbrt_tpu.parallel import host as phost
+from pbrt_jax.parallel import host as phost
 
 
 def test_parallel_map_preserves_order():
@@ -28,13 +28,13 @@ def test_include_prefetch_parses(tmp_path):
         'LightSource "infinite" "rgb L" [1 1 1]\n'
         'Translate 0 0 4\n'
         'Include "geo.pbrt"\n')
-    from pbrt_tpu.scene.parser import parse_file
+    from pbrt_jax.scene.parser import parse_file
     desc = parse_file(str(main))
     assert desc.scene.n_spheres > 0 or desc.scene.tri_p0.shape[0] > 1
 
 
 def test_ply_prefetch_warms_cache(tmp_path):
-    from pbrt_tpu.scene import plyio
+    from pbrt_jax.scene import plyio
     v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     f = np.array([[0, 1, 2]], np.int32)
     ply = tmp_path / "m.ply"
@@ -44,6 +44,6 @@ def test_ply_prefetch_warms_cache(tmp_path):
         'Camera "perspective"\n'
         'WorldBegin\nLightSource "infinite" "rgb L" [1 1 1]\n'
         f'Shape "plymesh" "string filename" "m.ply"\n')
-    from pbrt_tpu.scene.parser import parse_file
+    from pbrt_jax.scene.parser import parse_file
     desc = parse_file(str(scene))
     assert desc.scene.tri_p0.shape[0] >= 1

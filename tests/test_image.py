@@ -1,7 +1,7 @@
 """Image I/O round-trips (reference image_test.cpp pattern)."""
 import numpy as np
 
-from pbrt_tpu.utils import image as pimg
+from pbrt_jax.utils import image as pimg
 
 
 def test_pfm_roundtrip(tmp_path):

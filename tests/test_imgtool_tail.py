@@ -3,8 +3,8 @@ makeemitters, splitn, scalenormalmap, whitebalance)."""
 import numpy as np
 import pytest
 
-from pbrt_tpu.cmd import imgtool
-from pbrt_tpu.utils import image as pimg
+from pbrt_jax.cmd import imgtool
+from pbrt_jax.utils import image as pimg
 
 
 def _write_exr(tmp_path, name, img):

@@ -8,9 +8,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pbrt_tpu.utils import log
-from pbrt_tpu.utils.progress import ProgressReporter
-from pbrt_tpu import film as film_mod
+from pbrt_jax.utils import log
+from pbrt_jax.utils.progress import ProgressReporter
+from pbrt_jax import film as film_mod
 
 
 def test_log_levels(capsys):
@@ -57,9 +57,9 @@ def test_film_checkpoint_roundtrip(tmp_path):
 def test_render_resume_equals_straight(tmp_path):
     """A render interrupted at wave k and resumed must equal an
     uninterrupted render (same sampler => same sample set)."""
-    from pbrt_tpu import scenes, samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax import scenes, samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
 
     scene, cam = scenes.make_furnace_plane(albedo=0.5, width=16, height=16)
     sampler = smp.make_sampler("zsobol", spp=4, full_resolution=(16, 16))
@@ -79,7 +79,7 @@ def test_render_resume_equals_straight(tmp_path):
 
 
 def test_parse_error_carries_file_loc():
-    from pbrt_tpu.scene import parser
+    from pbrt_jax.scene import parser
     with pytest.raises(parser.ParseError, match=r"test\.pbrt:3:"):
         parser.parse_string(
             'Camera "perspective"\nWorldBegin\nShape "hyperboloid"\n',
@@ -88,7 +88,7 @@ def test_parse_error_carries_file_loc():
 
 @pytest.mark.slow
 def test_cli_end_to_end(tmp_path):
-    from pbrt_tpu.cmd import main as cli
+    from pbrt_jax.cmd import main as cli
     scene_file = tmp_path / "t.pbrt"
     scene_file.write_text('''
 Film "rgb" "integer xresolution" [8] "integer yresolution" [8]
@@ -114,7 +114,7 @@ AttributeEnd
 
 def test_stats_registry_and_pixelstats(tmp_path):
     """STAT_* registry roles (stats.h:88-170) + per-pixel stat images."""
-    from pbrt_tpu.utils.stats import StatsAccumulator, PixelStats
+    from pbrt_jax.utils.stats import StatsAccumulator, PixelStats
     import numpy as np
     a = StatsAccumulator()
     a.count("Geometry/Triangles", 10)
@@ -130,7 +130,7 @@ def test_stats_registry_and_pixelstats(tmp_path):
     ps = PixelStats(4, 4)
     ps.add("visits", np.asarray([0, 0, 5]), np.asarray([1.0, 2.0, 7.0]))
     paths = ps.write(str(tmp_path / "st"))
-    from pbrt_tpu.utils import image as pimg
+    from pbrt_jax.utils import image as pimg
     img = pimg.read_exr_channels(paths[0])["Y"]
     assert img[0, 0] == 3.0 and img[1, 1] == 7.0
 
@@ -138,7 +138,7 @@ def test_stats_registry_and_pixelstats(tmp_path):
 def test_crash_context_scope(capsys):
     """CheckCallbackScope (reference util/check.h): registered context is
     rendered on demand and unregistered on exit."""
-    from pbrt_tpu.utils import check
+    from pbrt_jax.utils import check
     with check.CheckCallbackScope("outer", lambda: "scene.pbrt"):
         with check.CheckCallbackScope("render", lambda: "wave 3/64"):
             ctx = check.crash_context()

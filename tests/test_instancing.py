@@ -4,9 +4,9 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import transform as tfm
 
 
 def _cube(size=1.0):
@@ -96,9 +96,9 @@ def test_instance_shadows():
 
 @pytest.mark.slow
 def test_instanced_render_smoke():
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import cameras as cam_mod
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import cameras as cam_mod
     b, m, mg = _scene_with_instances()
     scene = b.build(force_bvh=False)
     cam = cam_mod.make_camera(
@@ -111,7 +111,7 @@ def test_instanced_render_smoke():
 
 
 def test_parser_object_instance():
-    from pbrt_tpu.scene import parser
+    from pbrt_jax.scene import parser
     desc = parser.parse_string('''
 Camera "perspective"
 Film "rgb" "integer xresolution" [8] "integer yresolution" [8]

@@ -3,8 +3,8 @@ shapes_test.cpp watertight/rain tests and BVH traversal semantics)."""
 import jax.numpy as jnp
 import numpy as np
 
-from pbrt_tpu.ops import intersect as isect
-from pbrt_tpu.ops import bvh as bvh_mod
+from pbrt_jax.ops import intersect as isect
+from pbrt_jax.ops import bvh as bvh_mod
 
 
 def test_triangle_basic_hit():

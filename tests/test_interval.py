@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu.utils import interval as iv
+from pbrt_jax.utils import interval as iv
 
 
 def _rand_intervals(rng, n):

@@ -3,8 +3,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pbrt_tpu.ops import kdtree as kd_mod
-from pbrt_tpu.ops import bvh as bvh_mod
+from pbrt_jax.ops import kdtree as kd_mod
+from pbrt_jax.ops import bvh as bvh_mod
 
 
 def _soup(n, seed=0):
@@ -46,10 +46,10 @@ def test_kdtree_matches_brute_force():
 def test_accelerator_kdtree_directive_renders():
     """Accelerator "kdtree" selects the kd backend and produces the same
     image as the BVH."""
-    from pbrt_tpu.scene.parser import parse_string
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu import samplers as smp
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax.scene.parser import parse_string
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax import samplers as smp
+    from pbrt_jax.integrators.path import PathOptions
     base = '''
 Camera "perspective" "float fov" [50]
 Film "rgb" "integer xresolution" [24] "integer yresolution" [24]
@@ -62,7 +62,7 @@ Shape "trianglemesh" "integer indices" [0 1 2 0 2 3]
 '''
     d_bvh = parse_string(base, force_bvh=True)
     d_kd = parse_string('Accelerator "kdtree"\n' + base)
-    assert d_kd.scene.use_kdtree and not d_bvh.scene.use_kdtree
+    assert d_kd.scene.traversal == "kdtree" and d_bvh.scene.traversal != "kdtree"
     s = smp.make_sampler("independent", spp=8, full_resolution=(24, 24))
     img_b, _ = rdr.render(d_bvh.scene, d_bvh.camera, sampler=s,
                           opts=PathOptions(max_depth=2))

@@ -4,12 +4,12 @@ connections must agree with forward path tracing."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import scenes, samplers as smp, cameras as cm
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax import scenes, samplers as smp, cameras as cm
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import transform as tfm
 
 
 def test_direct_visible_area_light_matches():

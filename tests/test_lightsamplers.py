@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import lightsamplers as lsamp
-from pbrt_tpu.utils import spectrum as spc
+from pbrt_jax import scene_core as sc
+from pbrt_jax import lightsamplers as lsamp
+from pbrt_jax.utils import spectrum as spc
 
 
 def _many_light_scene(n_lights=20, light_sampler="bvh", seed=0):
@@ -83,11 +83,11 @@ def test_bvh_sampler_prefers_near_lights():
 def test_bvh_render_matches_power_render():
     """Same scene rendered with power and BVH light samplers must agree
     (both unbiased; compare means)."""
-    from pbrt_tpu import cameras as cm
-    from pbrt_tpu import samplers as smp
-    from pbrt_tpu.utils import transform as tfm
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax import cameras as cm
+    from pbrt_jax import samplers as smp
+    from pbrt_jax.utils import transform as tfm
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
     cam = cm.make_camera(
         "perspective",
         camera_from_world=tfm.look_at((0, 10, -25), (0, 0, 0), (0, 1, 0)).inverse(),

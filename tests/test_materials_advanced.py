@@ -5,10 +5,10 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from pbrt_tpu import bxdfs
-from pbrt_tpu import materials as mtl
-from pbrt_tpu import textures as tex_mod
-from pbrt_tpu.utils import sampling as usamp
+from pbrt_jax import bxdfs
+from pbrt_jax import materials as mtl
+from pbrt_jax import textures as tex_mod
+from pbrt_jax.utils import sampling as usamp
 
 
 def _params_coated_conductor(n, coat_rough=0.2, base_rough=0.3):

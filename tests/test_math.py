@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu.utils import math as pm
-from pbrt_tpu.utils import vecmath as vm
+from pbrt_jax.utils import math as pm
+from pbrt_jax.utils import vecmath as vm
 
 
 def test_lerp_clamp_sqr():

@@ -4,7 +4,7 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import bxdfs
+from pbrt_jax import bxdfs
 
 
 def _params(n, table, lam=550.0):
@@ -18,7 +18,7 @@ def _params(n, table, lam=550.0):
 
 
 def _lambertian_table(albedo=0.6):
-    from pbrt_tpu.utils import color as pcolor
+    from pbrt_jax.utils import color as pcolor
     cs = pcolor.srgb()
     grid = np.full((90 * 90 * 180, 3), albedo / np.pi, np.float32)
     coeffs = cs.to_spectrum_coeffs(grid)
@@ -62,7 +62,7 @@ def test_measured_energy_reasonable():
 
 def test_merl_loader(tmp_path):
     import struct
-    from pbrt_tpu.materials import load_merl_brdf
+    from pbrt_jax.materials import load_merl_brdf
     nh, nd, np_ = 4, 3, 6
     n = nh * nd * np_
     rng = np.random.default_rng(2)
@@ -79,10 +79,10 @@ def test_merl_loader(tmp_path):
 
 @pytest.mark.slow
 def test_measured_render_smoke():
-    from pbrt_tpu import scene_core as sc, cameras as cam_mod
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax import scene_core as sc, cameras as cam_mod
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax.utils import spectrum as spc
     b = sc.SceneBuilder()
     grid = np.full((90, 90, 180, 3), 0.5 / np.pi, np.float32)
     grid[:10] *= 8.0   # a specular-ish boost near theta_h = 0

@@ -4,13 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import cameras as cm
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.utils import transform as tfm
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
+from pbrt_jax import scene_core as sc
+from pbrt_jax import cameras as cm
+from pbrt_jax import samplers as smp
+from pbrt_jax.utils import transform as tfm
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
 
 
 def _look_down_z(width=16, height=16, fov=20.0):
@@ -21,7 +21,7 @@ def _look_down_z(width=16, height=16, fov=20.0):
 
 
 def _emissive_wall(b, L=1.0, z=5.0, mat=None):
-    from pbrt_tpu.utils import color as pcolor
+    from pbrt_jax.utils import color as pcolor
     m = mat if mat is not None else b.materials.add_diffuse((0.0, 0.0, 0.0))
     emit = spc.ConstantSpectrum(L)
     b.add_mesh([[-20, -20, z], [20, -20, z], [20, 20, z], [-20, 20, z]],
@@ -108,7 +108,7 @@ def test_scattering_volume_furnace():
 
 
 def test_grid_medium_density_lookup():
-    from pbrt_tpu import media as med_mod
+    from pbrt_jax import media as med_mod
     mb = med_mod.MediumBuilder()
     dens = np.zeros((4, 4, 4), np.float32)
     dens[1, 2, 3] = 8.0  # z=1, y=2, x=3
@@ -148,12 +148,12 @@ def test_rgbgrid_emissive_slab_analytic():
     Le * (1 - exp(-sigma_a * depth)) analytically (emission source term
     integrated against its own attenuation; reference RGBGridMedium
     media.h:355 + the absorb-event emission, integrators.cpp:1006)."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cam_mod
-    from pbrt_tpu import samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cam_mod
+    from pbrt_jax import samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax.utils import transform as tfm
     b = sc.SceneBuilder()
     b.materials.add_diffuse((0.0,) * 3)
     sig = 1.2
@@ -181,13 +181,13 @@ def test_rgbgrid_emissive_slab_analytic():
 def test_cloud_medium_renders():
     """Baked procedural cloud (reference CloudMedium media.h:430 recipe):
     builds, has structure, renders finite."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cam_mod
-    from pbrt_tpu import samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu.utils import spectrum as spc
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cam_mod
+    from pbrt_jax import samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax.utils import spectrum as spc
+    from pbrt_jax.utils import transform as tfm
     b = sc.SceneBuilder()
     mg = b.materials.add_diffuse((0.4,) * 3)
     b.add_mesh([[-6, -1.5, -6], [6, -1.5, -6], [6, -1.5, 6], [-6, -1.5, 6]],

@@ -7,13 +7,13 @@ through an interface-bounded homogeneous medium."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import cameras as cam_mod
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax import cameras as cam_mod
+from pbrt_jax import samplers as smp
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import transform as tfm
 
 S = 1.0
 _BOX_V = np.asarray([[-S, -S, -S], [S, -S, -S], [S, S, -S], [-S, S, -S],
@@ -112,8 +112,8 @@ def test_large_interface_pool_uses_bvh_and_matches_brute():
     results must equal the brute-force path bit-for-bit up to tie-breaks."""
     import numpy as np
     import jax.numpy as jnp
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import scenes as scn
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import scenes as scn
 
     V, F, _n = scn.make_sphere_mesh((0.0, 0.0, 0.0), 1.0, subdiv=3)
     b = sc.SceneBuilder()

@@ -6,7 +6,7 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import textures as tex_mod
+from pbrt_jax import textures as tex_mod
 
 
 def _pool_with_image(img, raw=False):
@@ -63,7 +63,7 @@ def test_ewa_runs_and_blurs_along_major_axis():
     rng = np.random.default_rng(2)
     img = rng.uniform(0, 1, (16, 16, 3)).astype(np.float32)
     pool, idx = _pool_with_image(img)
-    from pbrt_tpu.ops.gather import pool_lookup
+    from pbrt_jax.ops.gather import pool_lookup
     n = 8
     uv = jnp.asarray(rng.uniform(0.2, 0.8, (n, 2)), jnp.float32)
     ti = jnp.full((n,), idx, jnp.int32)
@@ -87,10 +87,10 @@ def test_nonpow2_image_resampled():
 def test_render_with_mipmapped_texture_smoke():
     """Textured plane renders with the cone-driven MIP path (footprint
     threads camera -> intersect -> material -> texture)."""
-    from pbrt_tpu import scene_core as sc, samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import cameras as cam_mod
+    from pbrt_jax import scene_core as sc, samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import cameras as cam_mod
 
     rng = np.random.default_rng(4)
     img = rng.uniform(0.2, 0.8, (16, 16, 3)).astype(np.float32)
@@ -102,10 +102,10 @@ def test_render_with_mipmapped_texture_smoke():
                    np.float32)
     b.add_mesh(P, np.asarray([[0, 1, 2], [0, 2, 3]]), m,
                uvs=np.asarray([[0, 0], [25, 0], [25, 25], [0, 25]], np.float32))
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax.utils import spectrum as spc
     b.add_uniform_infinite_light(spc.ConstantSpectrum(1.0), 1.0)
     scene = b.build(force_bvh=False)
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax.utils import transform as tfm
     cam = cam_mod.make_camera(
         "perspective", fov=60, width=24, height=24,
         camera_from_world=tfm.look_at((0, 1.0, 0), (0, 0.3, -5),

@@ -4,9 +4,9 @@ image with the bootstrap normalization b."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import scenes, samplers as smp
-from pbrt_tpu.integrators import render as rdr, mlt
-from pbrt_tpu.integrators.path import PathOptions
+from pbrt_jax import scenes, samplers as smp
+from pbrt_jax.integrators import render as rdr, mlt
+from pbrt_jax.integrators.path import PathOptions
 
 
 def test_table_width_covers_dims():
@@ -40,8 +40,8 @@ def test_mlt_replay_deterministic():
     reproduces the same contribution bit-for-bit, and perturbing the film
     dims moves the raster position."""
     import numpy as np
-    from pbrt_tpu import scenes
-    from pbrt_tpu.integrators import mlt as mlt_mod
+    from pbrt_jax import scenes
+    from pbrt_jax.integrators import mlt as mlt_mod
     scene, cam = scenes.make_cornell_box(width=32, height=32)
     rng = np.random.default_rng(3)
     vec = rng.random(mlt_mod._table_width(3)).astype(np.float32)

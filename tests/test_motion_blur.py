@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import transform as tfm
 
 
 def _animated_scene():
@@ -58,9 +58,9 @@ def test_animated_shadows_move():
 def test_motion_blur_render_streaks():
     """A fast-moving quad renders as a streak: pixels across the sweep
     each get partial coverage."""
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import cameras as cam_mod
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import cameras as cam_mod
     scene = _animated_scene()
     cam = cam_mod.make_camera(
         "perspective", fov=60, width=48, height=16,
@@ -82,7 +82,7 @@ def test_motion_blur_render_streaks():
 
 @pytest.mark.slow
 def test_parser_active_transform_animates_instance():
-    from pbrt_tpu.scene import parser
+    from pbrt_jax.scene import parser
     desc = parser.parse_string('''
 Camera "perspective"
 Film "rgb" "integer xresolution" [8] "integer yresolution" [8]
@@ -124,7 +124,7 @@ def test_animated_rotation_stays_rigid():
     length at the halfway point."""
     import numpy as np
     import jax.numpy as jnp
-    from pbrt_tpu.ops import tlas as tlas_mod
+    from pbrt_jax.ops import tlas as tlas_mod
 
     c, s = np.cos(np.pi / 2), np.sin(np.pi / 2)
     o2w0 = np.asarray([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]],

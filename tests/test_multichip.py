@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import pytest
 
-from pbrt_tpu import scenes
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.parallel import mesh as pmesh
+from pbrt_jax import scenes
+from pbrt_jax import samplers as smp
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.parallel import mesh as pmesh
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8-device mesh")
@@ -61,11 +61,11 @@ def test_sharded_zsobol_depth4_equals_single_device():
 def _mesh_scene(width, height):
     """Small BVH trianglemesh scene (icosphere + lit box) — the meshfield
     code-path class: BVH traversal + the compaction driver's per-depth
-    shared ray sort (pbrt_tpu/integrators/path.py::_run_compacted)."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cam_mod
-    from pbrt_tpu.utils import color as pcolor
-    from pbrt_tpu.utils import transform as tfm
+    shared ray sort (pbrt_jax/integrators/path.py::_run_compacted)."""
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cam_mod
+    from pbrt_jax.utils import color as pcolor
+    from pbrt_jax.utils import transform as tfm
 
     b = sc.SceneBuilder()
     verts, faces, _n = scenes.make_sphere_mesh((0.0, 1.0, 0.0), 1.0,
@@ -96,7 +96,7 @@ def test_sharded_compacted_mesh_equals_single_device():
     W = H = 24
     spp = 2
     scene, cam = _mesh_scene(W, H)
-    assert scene.use_bvh
+    assert scene.traversal in ("bvh_xla", "bvh_cuda")
     sampler = smp.make_sampler("zsobol", spp=spp, full_resolution=(W, H))
     opts = PathOptions(max_depth=4, compaction=True, compaction_start=1)
 

@@ -7,7 +7,7 @@ import zlib
 import numpy as np
 import pytest
 
-from pbrt_tpu.cmd import nanovdb2pbrt as nv
+from pbrt_jax.cmd import nanovdb2pbrt as nv
 
 
 def _make_leaf(origin, block_xyz):
@@ -109,7 +109,7 @@ def test_cli_pbrt_output(tmp_path, capsys):
     out = capsys.readouterr().out
     assert '"integer nx" 8' in out and '"float density"' in out
     # output parses as a pbrt grid medium parameter block
-    from pbrt_tpu.scene.parser import parse_string
+    from pbrt_jax.scene.parser import parse_string
     scene_text = (
         'Camera "perspective"\nWorldBegin\n'
         'LightSource "infinite" "rgb L" [1 1 1]\n'

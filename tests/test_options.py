@@ -3,12 +3,12 @@ scene.cpp:492)."""
 import numpy as np
 import pytest
 
-from pbrt_tpu.options import get_options, reset_options
+from pbrt_jax.options import get_options, reset_options
 
 
 def test_option_directive_writes_globals():
     reset_options()
-    from pbrt_tpu.scene.parser import parse_string
+    from pbrt_jax.scene.parser import parse_string
     parse_string('Option "integer seed" [7] "bool disablepixeljitter" true\n'
                  'Camera "perspective"\nWorldBegin\n'
                  'LightSource "infinite" "rgb L" [1 1 1]\n'
@@ -21,9 +21,9 @@ def test_option_directive_writes_globals():
 
 def test_disable_jitters_make_waves_deterministic():
     reset_options()
-    from pbrt_tpu import scenes, samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax import scenes, samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
     scene, cam = scenes.make_cornell_box(width=16, height=16)
     s = smp.make_sampler("independent", spp=1, full_resolution=(16, 16))
     o = get_options()

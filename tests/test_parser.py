@@ -4,8 +4,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from pbrt_tpu.scene import parser as pp
-from pbrt_tpu.scene import plyio
+from pbrt_jax.scene import parser as pp
+from pbrt_jax.scene import plyio
 
 DATA = Path(__file__).parent / "data"
 
@@ -19,7 +19,7 @@ def test_native_and_python_tokenizers_agree():
     src = (b'LookAt 1 2 3 0 0 0 0 1 0 # comment\n'
            b'Material "diffuse" "rgb reflectance" [.5 .5 .5]\n'
            b'Shape "sphere" "float radius" [-1.5e2]')
-    from pbrt_tpu.native import tokenize_native
+    from pbrt_jax.native import tokenize_native
     nat = tokenize_native(src)
     if nat is None:
         import pytest
@@ -61,9 +61,9 @@ def test_parse_cornell():
 def test_parse_and_render_cornell():
     import jax
     desc = pp.parse_file(DATA / "cornell-box.pbrt")
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import samplers as smp
     img, _ = rdr.render(desc.scene, desc.camera, spp=4,
                         sampler=smp.make_sampler("zsobol", spp=4,
                                                  full_resolution=(64, 64)),
@@ -115,7 +115,7 @@ def test_parse_object_instancing():
     assert scene.has_instances
     assert scene.inst_rows.shape[0] == 3  # world + 2 instances
     import jax.numpy as jnp
-    from pbrt_tpu import scene_core as sc
+    from pbrt_jax import scene_core as sc
     o = jnp.asarray([[0.2, 0.2, 5.0], [5.2, 0.2, 5.0], [9.0, 0.2, 5.0]])
     d = jnp.tile(jnp.asarray([[0.0, 0.0, -1.0]]), (3, 1))
     r = sc.intersect(scene, o, d, jnp.full((3,), 1e30))
@@ -147,7 +147,7 @@ def test_parse_object_instancing_nonidentity_base_ctm():
     desc = pp.parse_string(scene_txt)
     scene = desc.scene
     import jax.numpy as jnp
-    from pbrt_tpu import scene_core as sc
+    from pbrt_jax import scene_core as sc
     o = jnp.asarray([[5.2, 0.2, 5.0],    # first instance: at x=+5
                      [-4.8, 0.2, 5.0],   # the old inverted-base position
                      [5.2, 7.2, 5.0]])   # second instance: +5,+7
@@ -195,7 +195,7 @@ def test_parse_sphere_nonuniform_scale_exact_quadric():
     assert desc.scene.tri_p0.shape[0] == 1
     # probe: a +z ray down the center hits the ellipsoid front at z' = -2
     import jax.numpy as jnp
-    from pbrt_tpu import scene_core as sc
+    from pbrt_jax import scene_core as sc
     o = jnp.asarray([[0.0, 0.0, -5.0], [0.0, 3.5, 3.0]])
     d = jnp.asarray([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]])
     r = sc.intersect(desc.scene, o, d, jnp.full((2,), 1e30))
@@ -245,8 +245,8 @@ def test_parser_texture_directive_kinds(tmp_path):
     bilerp / scale build real texture-pool rows and attach to diffuse
     reflectance (reference textures.cpp Create* registry)."""
     import numpy as np
-    from pbrt_tpu.utils import image as pimg
-    from pbrt_tpu import textures as tex_mod
+    from pbrt_jax.utils import image as pimg
+    from pbrt_jax import textures as tex_mod
     img = np.ones((8, 8, 3), np.float32) * 0.25
     pimg.write_exr(tmp_path / "t.exr", img)
     scene_txt = """
@@ -272,7 +272,7 @@ LightSource "infinite" "spectrum L" [360 1 830 1]
 """
     f = tmp_path / "tex.pbrt"
     f.write_text(scene_txt)
-    from pbrt_tpu.scene import parser as pparser
+    from pbrt_jax.scene import parser as pparser
     desc = pparser.parse_file(f)
     pool = desc.scene.textures
     assert pool.has_mixers
@@ -283,8 +283,8 @@ LightSource "infinite" "spectrum L" [360 1 830 1]
     assert tex_mod.TEX_DIRMIX in tags
     assert tex_mod.TEX_BILERP in tags
     # renders without error and produces finite pixels
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
     img_out, _ = rdr.render(desc.scene, desc.camera, spp=1,
                             sampler=desc.sampler,
                             opts=PathOptions(max_depth=2))
@@ -295,7 +295,7 @@ def test_attribute_directive_applies_defaults():
     """Attribute "shape"/"material" params apply to subsequent directives
     of that category within the attribute scope (reference
     BasicSceneBuilder::Attribute, scene.cpp); own params win."""
-    from pbrt_tpu.scene.parser import parse_string
+    from pbrt_jax.scene.parser import parse_string
     import numpy as np
     desc = parse_string('''
 Camera "perspective"

@@ -1,9 +1,9 @@
 """plytool (reference cmd/plytool.cpp): info/cat/displace/split."""
 import numpy as np
 
-from pbrt_tpu.cmd import plytool
-from pbrt_tpu.scene import plyio
-from pbrt_tpu.utils import image as pimg
+from pbrt_jax.cmd import plytool
+from pbrt_jax.scene import plyio
+from pbrt_jax.utils import image as pimg
 
 
 def _quad_mesh(tmp_path, name="m.ply"):

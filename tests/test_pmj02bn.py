@@ -5,7 +5,7 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from pbrt_tpu import samplers as smp
+from pbrt_jax import samplers as smp
 
 
 def test_pmj02_table_elementary_intervals():
@@ -81,9 +81,9 @@ def test_pmj02bn_render_smoke():
     """End-to-end: cornell box with the pmj02bn sampler converges to the
     same mean as zsobol."""
     import jax
-    from pbrt_tpu import scenes
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax import scenes
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
     scene, cam = scenes.make_cornell_box(width=24, height=24)
     opts = PathOptions(max_depth=3)
     img1, _ = rdr.render(scene, cam, spp=32,

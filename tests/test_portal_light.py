@@ -4,9 +4,9 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import lights as lgt
-from pbrt_tpu.utils import color as pcolor
-from pbrt_tpu.utils import spectrum as spc
+from pbrt_jax import lights as lgt
+from pbrt_jax.utils import color as pcolor
+from pbrt_jax.utils import spectrum as spc
 
 
 def _portal_light(img=None, res=32):
@@ -117,10 +117,10 @@ def test_portal_estimator_matches_window_solid_angle():
 
 @pytest.mark.slow
 def test_portal_scene_render_smoke():
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import cameras as cam_mod
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import cameras as cam_mod
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((0.6,) * 3)
     b.add_mesh([[-3, -1, -3], [3, -1, -3], [3, -1, 3], [-3, -1, 3]],

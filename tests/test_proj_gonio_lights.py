@@ -3,9 +3,9 @@ lights.h:516/599/544)."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import lights as lgt
-from pbrt_tpu.utils import spectrum as spc
+from pbrt_jax import scene_core as sc
+from pbrt_jax import lights as lgt
+from pbrt_jax.utils import spectrum as spc
 
 
 def _sample_from(scene, light_idx, pts):
@@ -71,7 +71,7 @@ def test_goniometric_light_runs_and_scales():
 def test_env_bilinear_is_smooth():
     """Bilinear env lookup interpolates between texels (no nearest-texel
     stair-step): radiance varies smoothly along a path crossing texels."""
-    from pbrt_tpu.utils import color as pcolor
+    from pbrt_jax.utils import color as pcolor
     rng = np.random.default_rng(0)
     img = rng.uniform(0.1, 1.0, (16, 16, 3)).astype(np.float32)
     env = lgt.make_env_light(img, pcolor.srgb())
@@ -87,7 +87,7 @@ def test_env_bilinear_is_smooth():
 
 
 def test_parser_projection_and_gonio():
-    from pbrt_tpu.scene import parser
+    from pbrt_jax.scene import parser
     desc = parser.parse_string('''
 Camera "perspective"
 Film "rgb" "integer xresolution" [8] "integer yresolution" [8]

@@ -7,7 +7,7 @@ import numpy as np
 def test_low_discrepancy_suppresses_low_frequencies(capsys):
     """Sobol'-family samplers must have much less low-frequency energy
     than independent sampling (the whole point of the diagnostic)."""
-    from pbrt_tpu.cmd import pspec
+    from pbrt_jax.cmd import pspec
     stats = {}
     for kind in ("independent", "zsobol"):
         pts = pspec.sampler_points(kind, spp=64, runs=8)
@@ -24,7 +24,7 @@ def test_low_discrepancy_suppresses_low_frequencies(capsys):
 
 
 def test_pspec_cli(tmp_path, capsys):
-    from pbrt_tpu.cmd import pspec
+    from pbrt_jax.cmd import pspec
     out = str(tmp_path / "s.png")
     assert pspec.main(["--sampler", "stratified", "--spp", "16",
                        "--runs", "4", "--res", "33",

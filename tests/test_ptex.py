@@ -3,10 +3,10 @@ SURVEY hard-part #4: offline conversion to array form)."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
-from pbrt_tpu.scene.parser import parse_string, ParseError
+from pbrt_jax import samplers as smp
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
+from pbrt_jax.scene.parser import parse_string, ParseError
 
 
 def test_ptex_per_face_colors(tmp_path):

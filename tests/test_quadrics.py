@@ -5,8 +5,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu.utils import transform as tfm
+from pbrt_jax import scene_core as sc
+from pbrt_jax.utils import transform as tfm
 
 
 def _scene():

@@ -3,7 +3,7 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import cameras as cam_mod
+from pbrt_jax import cameras as cam_mod
 
 
 def test_focus_gap_monotone_with_distance():
@@ -106,10 +106,10 @@ def test_vignetting_at_extreme_apertures():
 
 @pytest.mark.slow
 def test_realistic_render_smoke():
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu.utils import spectrum as spc, transform as tfm
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax.utils import spectrum as spc, transform as tfm
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((0.7, 0.3, 0.3))
     b.add_mesh([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],

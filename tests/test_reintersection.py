@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu.utils import spectrum as spc
+from pbrt_jax import scene_core as sc
+from pbrt_jax.utils import spectrum as spc
 
 
 def _tri_scene(scale, offset):

@@ -3,10 +3,10 @@ render analytic scenes, check scene averages, tolerance ~2.5%)."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import scenes
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
+from pbrt_jax import scenes
+from pbrt_jax import samplers as smp
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
 
 
 def test_furnace_plane_single_bounce():
@@ -99,10 +99,10 @@ def test_sampler_convergence_order():
 def test_analytic_sphere_matches_tessellated():
     """Quadric sphere renders ~ the same as a finely tessellated mesh sphere
     (exercises _merge_sphere_hits + shading)."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cm
-    from pbrt_tpu.utils import transform as tfm
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cm
+    from pbrt_jax.utils import transform as tfm
+    from pbrt_jax.utils import spectrum as spc
     import jax.numpy as jnp
 
     def build(analytic):
@@ -133,10 +133,10 @@ def test_emissive_sphere_light():
     """Sphere area light with cone-sampled NEE: irradiance on a floor point
     directly below a small sphere ~ L * pi * r^2 / d^2 (point-source limit);
     also exercises MIS (BSDF rays hitting the sphere)."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cm
-    from pbrt_tpu.utils import transform as tfm
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cm
+    from pbrt_jax.utils import transform as tfm
+    from pbrt_jax.utils import spectrum as spc
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((1.0, 1.0, 1.0))
     b.add_mesh([[-20, 0, -20], [20, 0, -20], [20, 0, 20], [-20, 0, 20]],

@@ -18,7 +18,7 @@ Documented divergences (not gated for exactness, asserted distribution-
 compatible only):
   * "zsobol" (the fast default): same nested-uniform structure but a
     base-2 Owen shuffle of the index and u32 dimension hashes (~30x fewer
-    vector ops per dimension on TPU; see samplers.py
+    vector ops per dimension; see samplers.py
     _zsobol_sample_index_fast).
   * "halton": Cranley-Patterson rotation instead of the reference's CRT
     pixel remapping (no 64-bit index arithmetic on the sample path).
@@ -30,7 +30,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pbrt_tpu import samplers as smp
+from pbrt_jax import samplers as smp
 
 _DUMP = os.path.join(os.path.dirname(__file__), "data",
                      "sampler_reference_dump.txt")

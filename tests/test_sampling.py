@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from pbrt_tpu.utils import sampling as sp
-from pbrt_tpu.utils import rng as prng
-from pbrt_tpu.utils import lowdiscrepancy as ld
+from pbrt_jax.utils import sampling as sp
+from pbrt_jax.utils import rng as prng
+from pbrt_jax.utils import lowdiscrepancy as ld
 
 
 def _u2(n, seed=0):
@@ -227,7 +227,7 @@ def test_radical_inverse_dynamic_matches_static():
 def test_halton_sampler_stratification():
     """Halton: first dims are low-discrepancy per pixel; mean ~ 0.5 and
     1D stratification beats random at the same count."""
-    from pbrt_tpu import samplers as smp
+    from pbrt_jax import samplers as smp
     s = smp.make_sampler("halton", spp=64, full_resolution=(16, 16))
     px = jnp.zeros(64, jnp.int32)
     py = jnp.zeros(64, jnp.int32)

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu.utils import sampling as sp
+from pbrt_jax.utils import sampling as sp
 
 
 def test_spherical_triangle_area_octant():

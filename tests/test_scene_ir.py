@@ -1,6 +1,6 @@
 """Scene IR entity lists (reference scene.h:35-257 BasicScene/SceneEntity:
 the parse product is inspectable data, not just compiled arrays)."""
-from pbrt_tpu.scene.parser import parse_string
+from pbrt_jax.scene.parser import parse_string
 
 
 _SCENE = '''

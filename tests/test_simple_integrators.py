@@ -4,9 +4,9 @@ MIS-weighted path integrator."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import scenes, samplers as smp
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
+from pbrt_jax import scenes, samplers as smp
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
 
 
 @pytest.mark.parametrize("integ,tol,spp", [("simplepath", 0.05, 64),
@@ -37,10 +37,10 @@ def test_furnace_randomwalk():
 def test_simplevolpath_beer_lambert():
     """SimpleVolPath (reference integrators.h:239): absorbing slab before an
     emissive wall gives L = L0 exp(-sigma_a l) without any NEE machinery."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu.utils import spectrum as spc
-    from pbrt_tpu import cameras as cm
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax.utils import spectrum as spc
+    from pbrt_jax import cameras as cm
+    from pbrt_jax.utils import transform as tfm
     sigma = 0.4
     b = sc.SceneBuilder()
     m = b.materials.add_diffuse((0.0, 0.0, 0.0))
@@ -63,13 +63,13 @@ def test_simplevolpath_beer_lambert():
 def test_simplevolpath_scattering_matches_volpath():
     """Scattering slab under a dome: phase-sampled walk must agree with the
     full volpath integrator in expectation."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cm
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cm
+    from pbrt_jax.utils import transform as tfm
     b = sc.SceneBuilder()
     b.media.add_homogeneous(sigma_a=(0.1,) * 3, sigma_s=(0.8,) * 3, g=0.2,
                             bounds_lo=(-6, -6, 1), bounds_hi=(6, 6, 3))
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax.utils import spectrum as spc
     b.add_uniform_infinite_light(spc.ConstantSpectrum(1.0))
     scene = b.build(light_sampler="uniform", force_bvh=False)
     cam = cm.make_camera(width=16, height=16, fov=40.0,

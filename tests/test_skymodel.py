@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 from pathlib import Path
 
-from pbrt_tpu.utils.skymodel import HosekSkyModel, make_sky_image
+from pbrt_jax.utils.skymodel import HosekSkyModel, make_sky_image
 
 _G = np.load(Path(__file__).parent / "data" / "skymodel_golden.npz")
 

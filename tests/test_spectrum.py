@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.utils import color
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.utils import color
 
 
 def test_cie_y_integral():

@@ -3,9 +3,9 @@ progressive photon mapping must converge toward the path-traced image."""
 import numpy as np
 import pytest
 
-from pbrt_tpu import scenes, samplers as smp
-from pbrt_tpu.integrators import render as rdr, sppm
-from pbrt_tpu.integrators.path import PathOptions
+from pbrt_jax import scenes, samplers as smp
+from pbrt_jax.integrators import render as rdr, sppm
+from pbrt_jax.integrators.path import PathOptions
 
 
 @pytest.mark.slow

@@ -3,7 +3,7 @@ shapes loopsubdiv, util/noise.cpp, util/buffercache.h:33)."""
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu.utils.subdivision import loop_subdivide
+from pbrt_jax.utils.subdivision import loop_subdivide
 
 
 def _octahedron():
@@ -46,7 +46,7 @@ def test_loop_boundary_preserved():
 
 
 def test_turbulence_positive_and_rougher_than_fbm():
-    from pbrt_tpu import textures as tex
+    from pbrt_jax import textures as tex
     rng = np.random.default_rng(0)
     p = jnp.asarray(rng.uniform(-3, 3, (256, 3)), jnp.float32)
     t = np.asarray(tex.turbulence(p, 6, 0.5))
@@ -56,7 +56,7 @@ def test_turbulence_positive_and_rougher_than_fbm():
 
 
 def test_windy_wrinkled_textures_eval():
-    from pbrt_tpu import textures as tex
+    from pbrt_jax import textures as tex
     tb = tex.TextureBuilder()
     iw = tb.add_windy()
     ir = tb.add_wrinkled()
@@ -71,7 +71,7 @@ def test_windy_wrinkled_textures_eval():
 
 
 def test_ply_cache_dedups(tmp_path):
-    from pbrt_tpu.scene import plyio
+    from pbrt_jax.scene import plyio
     V = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32)
     F = np.asarray([[0, 1, 2]])
     p = str(tmp_path / "t.ply")
@@ -82,7 +82,7 @@ def test_ply_cache_dedups(tmp_path):
 
 
 def test_parser_loopsubdiv():
-    from pbrt_tpu.scene import parser
+    from pbrt_jax.scene import parser
     desc = parser.parse_string('''
 Camera "perspective"
 Film "rgb" "integer xresolution" [8] "integer yresolution" [8]
@@ -98,7 +98,7 @@ Shape "loopsubdiv" "integer levels" [2]
 
 
 def test_dots_texture_two_values_cell_coverage():
-    from pbrt_tpu import textures as tex
+    from pbrt_jax import textures as tex
     tb = tex.TextureBuilder()
     idx = tb.add_dots((1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
     pool = tb.build()

@@ -1,13 +1,13 @@
 """BSSRDF subsurface scattering (reference bssrdf.h:105 TabulatedBSSRDF /
-wavefront subsurface.cpp; TPU substitution: Burley normalized diffusion)."""
+wavefront subsurface.cpp; vectorized substitution: Burley normalized diffusion)."""
 import pytest
 import numpy as np
 import jax.numpy as jnp
 
 
 def _sss_scene(mfp=0.2):
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax.utils import spectrum as spc
     b = sc.SceneBuilder()
     m = b.materials.add_subsurface(reflectance=(0.8, 0.4, 0.3),
                                    mfp=(mfp,) * 3, eta=1.33)
@@ -24,7 +24,7 @@ def _sss_scene(mfp=0.2):
 
 def test_subsurface_material_pool_flags():
     scene = _sss_scene()
-    from pbrt_tpu import bxdfs
+    from pbrt_jax import bxdfs
     assert scene.materials.has_subsurface
     assert bxdfs.BXDF_DIFFUSE in scene.materials.bxdf_tags_present
     assert bxdfs.BXDF_CONDUCTOR in scene.materials.bxdf_tags_present
@@ -32,10 +32,10 @@ def test_subsurface_material_pool_flags():
 
 @pytest.mark.slow
 def test_subsurface_render_finite_and_colored():
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import cameras as cam_mod
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import cameras as cam_mod
+    from pbrt_jax.utils import transform as tfm
     scene = _sss_scene()
     cam = cam_mod.make_camera(
         "perspective", fov=50, width=24, height=24,
@@ -54,10 +54,10 @@ def test_subsurface_render_finite_and_colored():
 def test_subsurface_mfp_controls_translucency():
     """Small mfp -> surface-like (brighter local response at normal
     incidence); the render differs measurably from large mfp."""
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu import cameras as cam_mod
-    from pbrt_tpu.utils import transform as tfm
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax import cameras as cam_mod
+    from pbrt_jax.utils import transform as tfm
     cam = cam_mod.make_camera(
         "perspective", fov=50, width=16, height=16,
         camera_from_world=tfm.look_at((0, 2.5, 2.5), (0, 0, 0),
@@ -86,7 +86,7 @@ def test_tabulated_table_identities():
     sampling/evaluation estimator identity E[Q_l/pdf] == rho_eff_l, and
     SubsurfaceFromDiffuse roundtrips (bssrdf.cpp:280)."""
     import jax.numpy as jnp
-    from pbrt_tpu import bssrdf as bs
+    from pbrt_jax import bssrdf as bs
     tbl = bs.compute_table(g=0.0, eta=1.33)
     rho_eff = np.asarray(tbl.rho_eff)
     assert (np.diff(rho_eff) > 0).all()
@@ -116,11 +116,11 @@ def test_tabulated_table_identities():
 def test_tabulated_vs_burley_render():
     """Tabulated and Burley renders of the same material agree in overall
     energy (same reflectance/mfp; profiles differ in shape, not albedo)."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import scenes, samplers as smp, cameras as cam_mod
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
-    from pbrt_tpu.utils import spectrum as spc, transform as tfm
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import scenes, samplers as smp, cameras as cam_mod
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
+    from pbrt_jax.utils import spectrum as spc, transform as tfm
     imgs = {}
     for prof in ("tabulated", "burley"):
         b = sc.SceneBuilder()
@@ -147,7 +147,7 @@ def test_tabulated_vs_burley_render():
 
 
 def test_scattering_preset():
-    from pbrt_tpu import bssrdf as bs
+    from pbrt_jax import bssrdf as bs
     got = bs.get_scattering_preset("Marble")
     assert got is not None
     sa, sps = got

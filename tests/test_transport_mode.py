@@ -14,8 +14,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pbrt_tpu import bxdfs
-from pbrt_tpu.utils import vecmath as vm
+from pbrt_jax import bxdfs
+from pbrt_jax.utils import vecmath as vm
 
 
 def _dielectric_params(n, eta=1.5, alpha=0.3):
@@ -64,10 +64,10 @@ def test_adjoint_reciprocity_rough_dielectric():
 def _glass_slab_scene(width=48, height=48):
     """Diffuse floor under a thin glass slab under an area light: every
     light subpath to the floor crosses the dielectric twice."""
-    from pbrt_tpu import scene_core as sc
-    from pbrt_tpu import cameras as cam_mod
-    from pbrt_tpu.utils import transform as tfm
-    from pbrt_tpu.utils import color as pcolor
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax import cameras as cam_mod
+    from pbrt_jax.utils import transform as tfm
+    from pbrt_jax.utils import color as pcolor
 
     b = sc.SceneBuilder()
     floor = b.materials.add_diffuse((0.6, 0.6, 0.6))
@@ -104,9 +104,9 @@ def _glass_slab_scene(width=48, height=48):
 def test_bdpt_matches_path_through_glass():
     """With the eta^2 adjoint fix, light subpaths crossing the slab carry
     the same weight as camera subpaths: BDPT mean == path mean."""
-    from pbrt_tpu import samplers as smp
-    from pbrt_tpu.integrators import render as rdr
-    from pbrt_tpu.integrators.path import PathOptions
+    from pbrt_jax import samplers as smp
+    from pbrt_jax.integrators import render as rdr
+    from pbrt_jax.integrators.path import PathOptions
 
     scene, cam = _glass_slab_scene()
     opts = PathOptions(max_depth=5)

@@ -5,13 +5,13 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from pbrt_tpu import scene_core as sc
-from pbrt_tpu import cameras as cm
-from pbrt_tpu import samplers as smp
-from pbrt_tpu.utils import transform as tfm
-from pbrt_tpu.utils import spectrum as spc
-from pbrt_tpu.integrators import render as rdr
-from pbrt_tpu.integrators.path import PathOptions
+from pbrt_jax import scene_core as sc
+from pbrt_jax import cameras as cm
+from pbrt_jax import samplers as smp
+from pbrt_jax.utils import transform as tfm
+from pbrt_jax.utils import spectrum as spc
+from pbrt_jax.integrators import render as rdr
+from pbrt_jax.integrators.path import PathOptions
 
 
 def _look_down_z(width=8, height=8, fov=10.0):
@@ -106,8 +106,8 @@ def test_spectral_absorber_tints():
 def test_majorant_supergrid_conservative():
     """Supergrid cells must bound sigma_t everywhere; cells far from a
     sparse density spike must be zero (that is the DDA speedup)."""
-    from pbrt_tpu import media as med_mod
-    from pbrt_tpu.utils import color as pcolor
+    from pbrt_jax import media as med_mod
+    from pbrt_jax.utils import color as pcolor
     mb = med_mod.MediumBuilder()
     dens = np.zeros((32, 32, 32), np.float32)
     dens[4, 5, 6] = 3.0

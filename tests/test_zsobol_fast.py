@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pbrt_tpu import samplers as smp
+from pbrt_jax import samplers as smp
 
 
 def test_fast_shuffle_is_bijective():

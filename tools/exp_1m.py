@@ -1,10 +1,8 @@
 #!/usr/bin/env python3
-"""Million-triangle traversal benchmark (VERDICT r4 #2): a 1M-tri
-heightfield terrain traced through the production chunked BVH8 path with
-CAMERA-class and BOUNCE-class rays (the round-4 0.05 Mray/s number came
-from volume-random rays in a triangle SOUP — every block hit every chunk
-root, the adversarial worst case; real scenes have coherent rays and
-spatially disjoint chunks).
+"""Million-triangle traversal benchmark: a seeded ~1M-triangle heightfield
+terrain in one flat BVH, traced through the scene's traversal route
+(scene_core.select_traversal: the CUDA kernel on a GPU) with raster-,
+camera- and bounce-class rays.
 
     python tools/exp_1m.py [--n 708]
 """
@@ -14,7 +12,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tpu")
 
 
 def make_terrain(n=708):
@@ -86,37 +83,26 @@ def main():
     import numpy as np
     import jax
     import jax.numpy as jnp
-    from pbrt_tpu.ops import bvh as bvh_mod, pallas_bvh8 as b8
-    from pbrt_tpu import scene_core as sc
+    from pbrt_jax import scene_core as sc
+    from pbrt_jax.utils.compile_cache import setup_compile_cache
+    setup_compile_cache()
 
     print("backend:", jax.default_backend(), flush=True)
     V, F = make_terrain(args.n)
-    p0, p1, p2 = V[F[:, 0]], V[F[:, 1]], V[F[:, 2]]
     print(f"tris: {len(F)}", flush=True)
-    lo = np.minimum(np.minimum(p0, p1), p2)
-    hi = np.maximum(np.maximum(p0, p1), p2)
     t0 = time.time()
-    tri_geo = np.concatenate(
-        [p0, p1, p2, np.arange(len(F), dtype=np.float32)[:, None]], 1)
-    kc = b8.build_bvh8_chunked(lo, hi, tri_geo)
-    print(f"chunked build: {time.time()-t0:.1f}s, {kc.n_chunks} chunks",
+    b = sc.SceneBuilder()
+    b.add_mesh(V, F, b.materials.add_diffuse((0.5, 0.5, 0.5)))
+    scene = b.build()
+    print(f"scene build: {time.time()-t0:.1f}s, route {scene.traversal}",
           flush=True)
 
     N = 1 << 20
-    for kind in ("camera", "bounce"):
+    for kind in ("raster", "camera", "bounce"):
         o, d = gen_rays(V, kind, N)
         oj, dj = jnp.asarray(o), jnp.asarray(d)
-        # morton sort (the production wave presorts)
-        wl = jnp.asarray(lo.min(axis=0))
-        wh = jnp.asarray(hi.max(axis=0))
-
-        class _S:  # minimal shim for _ray_sort_keys
-            world_lo, world_hi = wl, wh
-        order = jnp.argsort(sc._ray_sort_keys(_S, oj, dj))
-        oj, dj = oj[order], dj[order]
         tm = jnp.full((N,), 1e30, jnp.float32)
-        fn = jax.jit(lambda o, d, tm: b8.chunked_intersect(
-            kc, o, d, tm)["t"])
+        fn = jax.jit(lambda o, d, tm: sc.intersect(scene, o, d, tm)["t"])
         out = fn(oj, dj, tm)
         jax.block_until_ready(out)
         t0 = time.perf_counter()

@@ -9,7 +9,7 @@ MIT-licensed generator by L. Gruenschloss). The reference (pbrt-v4) embeds the
 same public datasets as C arrays; we re-pack them as binary .npz so the JAX
 framework can memory-map them as device constants.
 
-Usage: python tools/extract_data.py  (writes into pbrt_tpu/data/)
+Usage: python tools/extract_data.py  (writes into pbrt_jax/data/)
 """
 import re
 import sys
@@ -17,7 +17,7 @@ import numpy as np
 from pathlib import Path
 
 REF = Path("/root/reference/src/pbrt")
-OUT = Path(__file__).resolve().parent.parent / "pbrt_tpu" / "data"
+OUT = Path(__file__).resolve().parent.parent / "pbrt_jax" / "data"
 
 
 def parse_c_arrays(text: str, decl_re: str) -> dict:

@@ -15,14 +15,14 @@ Layout per wavelength band (11 bands, 320..720nm step 40):
   solar     (11, 10, 45, 4)    turbidity x elevation-piece x poly coeff
   limb      (11, 6)            limb-darkening polynomial
 
-Usage: python tools/extract_skymodel.py  (writes pbrt_tpu/data/hosek_spectral.npz)
+Usage: python tools/extract_skymodel.py  (writes pbrt_jax/data/hosek_spectral.npz)
 """
 import re
 import numpy as np
 from pathlib import Path
 
 SRC = Path("/root/reference/src/ext/skymodel/ArHosekSkyModelData_Spectral.h")
-OUT = Path(__file__).resolve().parent.parent / "pbrt_tpu" / "data" / "hosek_spectral.npz"
+OUT = Path(__file__).resolve().parent.parent / "pbrt_jax" / "data" / "hosek_spectral.npz"
 
 WLS = list(range(320, 721, 40))  # 11 bands
 

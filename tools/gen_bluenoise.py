@@ -6,7 +6,7 @@ noise textures (util/bluenoise.h).
 We generate N_MASKS independent 128^2 masks; each mask is a dither ranking
 scaled to uint16. FFT-based Gaussian energy updates keep the build fast.
 
-Output: pbrt_tpu/data/bluenoise.npz, array "masks" (N, 128, 128) uint16.
+Output: pbrt_jax/data/bluenoise.npz, array "masks" (N, 128, 128) uint16.
 """
 from pathlib import Path
 
@@ -76,7 +76,7 @@ def make_mask(seed):
 
 def main():
     masks = np.stack([make_mask(1000 + i) for i in range(N_MASKS)])
-    out = ROOT / "pbrt_tpu" / "data" / "bluenoise.npz"
+    out = ROOT / "pbrt_jax" / "data" / "bluenoise.npz"
     np.savez_compressed(out, masks=masks)
     print(f"wrote {out} shape {masks.shape}")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Generate the golden-gate .pbrt scenes with EMBEDDED geometry so the
 reference oracle binary (tools/refbuild/build_reference.sh) and this
-renderer (pbrt_tpu.scene.parser) consume byte-identical scene data.
+renderer (pbrt_jax.scene.parser) consume byte-identical scene data.
 
 Scenes (written into scenes/):
   meshfield.pbrt  — 10 subdivided spheres (~20k tris) + ground, uniform env
@@ -23,7 +23,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# host-side generation only: keep jax off the (possibly absent) TPU
+# host-side generation only: keep jax on the CPU
 import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
@@ -52,7 +52,7 @@ def mesh_directive(V, F):
 
 HEADER = """# GENERATED by tools/gen_golden_scenes.py — do not edit.
 # Golden-gate scene: rendered by the reference oracle binary into
-# goldens/ and by pbrt_tpu through its .pbrt parser; tools/golden.py
+# goldens/ and by pbrt_jax through its .pbrt parser; tools/golden.py
 # bounds the MRSE between the two.
 """
 
@@ -60,7 +60,7 @@ CONST_ENV = ('LightSource "infinite" "spectrum L" [ 360 1 830 1 ]\n')
 
 
 def gen_meshfield():
-    from pbrt_tpu.utils.subdivision import loop_subdivide
+    from pbrt_jax.utils.subdivision import loop_subdivide
     rng = np.random.default_rng(7)
     V0 = np.asarray([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
                      [0, 0, 1], [0, 0, -1]], np.float32)
@@ -130,8 +130,8 @@ def gen_instances():
 
 
 def gen_envlit():
-    from pbrt_tpu.utils.subdivision import loop_subdivide
-    from pbrt_tpu.utils import image as pimg
+    from pbrt_jax.utils.subdivision import loop_subdivide
+    from pbrt_jax.utils import image as pimg
     # procedural lat-long gradient sky with a bright "sun" disk: enough
     # structure to exercise equal-area mapping + env importance sampling
     H, W = 64, 128
@@ -150,7 +150,7 @@ def gen_envlit():
     sky += (cosang > 0.995)[..., None] * np.asarray([40.0, 36.0, 30.0])
     # both renderers require square equal-area octahedral env maps (the
     # reference rejects lat-long; imgtool makeequiarea role)
-    from pbrt_tpu.utils import image_env
+    from pbrt_jax.utils import image_env
     sky_ea = np.asarray(image_env.equalarea_from_latlong(
         sky.astype(np.float32), res=128))
     pimg.write_exr(ROOT / "scenes" / "sky.exr", sky_ea.astype(np.float32))
@@ -344,9 +344,9 @@ def gen_plytex():
     dielectric sphere, and an image-textured (PNG) checker floor, under
     the gradient image env. Exercises: plymesh, conductor/dielectric,
     imagemap texture + MIP selection, BVH, ZSobol."""
-    from pbrt_tpu.utils.subdivision import loop_subdivide
-    from pbrt_tpu.scene import plyio
-    from pbrt_tpu.utils import image as pimg
+    from pbrt_jax.utils.subdivision import loop_subdivide
+    from pbrt_jax.scene import plyio
+    from pbrt_jax.utils import image as pimg
     rng = np.random.default_rng(31)
     # blobby displaced icosphere ~ organic mesh stand-in
     t = (1.0 + np.sqrt(5.0)) / 2.0
@@ -553,11 +553,10 @@ def gen_portalbox():
 def gen_killeroo():
     """killeroo-class SCALE golden (VERDICT r4 #2 / BASELINE config 2):
     two instances of an 81,920-triangle displaced-icosphere PLY (163,840
-    triangles total — above the single-SMEM-page BVH8 limit, so OUR
-    renderer traverses the CHUNKED multi-launch path) with gold conductor
-    and rough dielectric, on the imagemap floor under the image env."""
-    from pbrt_tpu.utils.subdivision import loop_subdivide
-    from pbrt_tpu.scene import plyio
+    triangles total, one flat BVH) with gold conductor and rough
+    dielectric, on the imagemap floor under the image env."""
+    from pbrt_jax.utils.subdivision import loop_subdivide
+    from pbrt_jax.scene import plyio
     t = (1.0 + np.sqrt(5.0)) / 2.0
     V0 = np.asarray([
         [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],

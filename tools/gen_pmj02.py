@@ -10,7 +10,7 @@ The blue-noise candidate optimization of pbrt's tables (pmj02bn) is not
 reproduced — these tables have the same variance behavior, without the
 perceptual dither property.
 
-Output: pbrt_tpu/data/pmj02bn.npz with array "samples" (5, 65536, 2) uint32.
+Output: pbrt_jax/data/pmj02bn.npz with array "samples" (5, 65536, 2) uint32.
 """
 import sys
 from pathlib import Path
@@ -59,7 +59,7 @@ def owen_scramble_host(v, seed):
 
 
 def main():
-    from pbrt_tpu.utils import lowdiscrepancy as ld
+    from pbrt_jax.utils import lowdiscrepancy as ld
     matrices = ld.sobol_matrices()
     n = 65536
     idx = np.arange(n, dtype=np.uint64)
@@ -73,7 +73,7 @@ def main():
         sets.append(np.stack([owen_scramble_host(v0, seed0),
                               owen_scramble_host(v1, seed1)], axis=1))
     samples = np.stack(sets).astype(np.uint32)
-    out = ROOT / "pbrt_tpu" / "data" / "pmj02bn.npz"
+    out = ROOT / "pbrt_jax" / "data" / "pmj02bn.npz"
     np.savez_compressed(out, samples=samples)
     print(f"wrote {out} shape {samples.shape}")
 

@@ -19,9 +19,9 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from pbrt_tpu.utils import color, spectrum as spc  # noqa: E402
+from pbrt_jax.utils import color, spectrum as spc  # noqa: E402
 
-OUT = Path(__file__).resolve().parent.parent / "pbrt_tpu" / "data"
+OUT = Path(__file__).resolve().parent.parent / "pbrt_jax" / "data"
 
 LAM = np.arange(360.0, 831.0, 5.0)  # 95 wavelengths
 NL = len(LAM)

@@ -38,19 +38,19 @@ def collect(scene_name="cornell", n=400 * 400, depth=5, reps=5):
     import types
     args = types.SimpleNamespace(scene=scene_name, n=n, depth=depth)
 
-    from pbrt_tpu import scenes, scene_core as sc, samplers as smp
-    from pbrt_tpu import bxdfs, materials as mtl, lights as lgt
-    from pbrt_tpu import lightsamplers as lsamp, cameras as cam_mod
-    from pbrt_tpu import filters as flt, film as film_mod
-    from pbrt_tpu.integrators import path as path_mod, render as rdr
-    from pbrt_tpu.utils import spectrum as spc
+    from pbrt_jax import scenes, scene_core as sc, samplers as smp
+    from pbrt_jax import bxdfs, materials as mtl, lights as lgt
+    from pbrt_jax import lightsamplers as lsamp, cameras as cam_mod
+    from pbrt_jax import filters as flt, film as film_mod
+    from pbrt_jax.integrators import path as path_mod, render as rdr
+    from pbrt_jax.utils import spectrum as spc
 
     N = args.n
     if args.scene == "cornell":
         scene, cam = scenes.make_cornell_box(width=400, height=400)
     elif args.scene == "mesh":
         # the SAME scene as the bench secondary metric (scenes/meshfield.pbrt)
-        from pbrt_tpu.scene import parser as pparser
+        from pbrt_jax.scene import parser as pparser
         desc = pparser.parse_file("scenes/meshfield.pbrt")
         scene, cam = desc.scene, desc.camera
     else:
@@ -104,7 +104,7 @@ def collect(scene_name="cornell", n=400 * 400, depth=5, reps=5):
     stage("sampler_all_dims", draw_dims, px, py, sidx)
 
     # --- material/BSDF ---
-    from pbrt_tpu.utils import vecmath as vm
+    from pbrt_jax.utils import vecmath as vm
 
     def shade_only(isect, swl_lam, u1, u2v):
         mat_res = mtl.resolve_mix(scene.materials, isect["mat"], isect["p"])
@@ -149,17 +149,17 @@ def main():
     ap.add_argument("--depth", type=int, default=5)
     args = ap.parse_args()
     import jax
-    from pbrt_tpu import scenes
+    from pbrt_jax import scenes
     rows, info = collect(args.scene, args.n, args.depth)
     N, ms_wave = info["N"], info["wave_ms"]
     if args.scene == "cornell":
         scene, _cam = scenes.make_cornell_box(width=400, height=400)
     else:
-        from pbrt_tpu.scene import parser as pparser
+        from pbrt_jax.scene import parser as pparser
         scene = pparser.parse_file("scenes/meshfield.pbrt").scene
 
     print(f"\ndevice={jax.devices()[0].device_kind}  scene={args.scene}  "
-          f"N={N}  use_bvh={scene.use_bvh}  T={scene.tri_geo.shape[0]}")
+          f"N={N}  traversal={scene.traversal}  T={scene.tri_geo.shape[0]}")
     print(f"{'stage':>28} {'ms':>10} {'Mray/s or Mpath/s':>18}")
     for name, ms in rows:
         print(f"{name:>28} {ms:10.2f} {N / ms / 1e3:18.2f}")

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Emit the two generated-data .cpp files that were stripped from the
 reference snapshot (util/bluenoise.cpp, util/pmj02tables.cpp) from this
-repo's own regenerated tables (pbrt_tpu/data/pmj02bn.npz from
-tools/gen_pmj02.py, pbrt_tpu/data/bluenoise.npz from tools/gen_bluenoise.py).
+repo's own regenerated tables (pbrt_jax/data/pmj02bn.npz from
+tools/gen_pmj02.py, pbrt_jax/data/bluenoise.npz from tools/gen_bluenoise.py).
 
 pmj02bn matches the declared shape exactly (5 x 65536 x 2 u32). The
 reference wants 48 blue-noise masks; we generated 8, so the remaining 40
@@ -27,7 +27,7 @@ def emit_array(f, values, per_line=12):
 def main():
     out = Path(sys.argv[1])
     data = Path(sys.argv[2]) if len(sys.argv) > 2 else \
-        Path(__file__).resolve().parent.parent.parent / "pbrt_tpu" / "data"
+        Path(__file__).resolve().parent.parent.parent / "pbrt_jax" / "data"
 
     pmj = np.load(data / "pmj02bn.npz")["samples"]
     assert pmj.shape == (5, 65536, 2) and pmj.dtype == np.uint32
